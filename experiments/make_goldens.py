@@ -4,11 +4,12 @@ SURVEY quirk 3 / Reference.cpp:566-671).
 
 Writes reference/<id>/low.exr (192x108 64-bounce MC, GOLDEN_FRAMES
 accumulated frames) for every preset, and reference/3/0.exr as scene 3's
-canonical golden.  Run on the TPU.  At the measured MC rate (~2.5M
-bounce-traces/s, BASELINE.md) a 192x108 64-bounce frame costs ~0.5 s, so
-256 frames/scene is ~2.5 min each; the checked-in set used 256 for
-low.exr (plenty for the pooled mean-brightness tests; per-pixel noise
+canonical golden.  The goldens are of the WDAS cloud: the VDB must be at
+data/volume/wdas_cloud_sixteenth.vdb.  The checked-in set used 256 frames
+for low.exr (plenty for the pooled mean-brightness tests; per-pixel noise
 ~CV/16) and 1024 for scene 3's canonical 0.exr.
+
+    python experiments/make_goldens.py [scene ids...]
 """
 import os
 import shutil
@@ -18,12 +19,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: F401
 
-from nrc_hpm_tpu.utils.compile_cache import enable_compilation_cache
+from nrc_hpm.utils.compile_cache import enable_compilation_cache
 
 enable_compilation_cache()
 
-from nrc_hpm_tpu.config import AppConfig, SceneConfig
-from nrc_hpm_tpu.reference import generate_golden
+from nrc_hpm.config import AppConfig, SceneConfig
+from nrc_hpm.reference import generate_golden
 
 W, H = 192, 108
 FRAMES = int(os.environ.get("GOLDEN_FRAMES", "256"))

@@ -2,7 +2,7 @@
 "Measured" table: per-frame NRC-vs-MC MSE/relBias/CV, warmup crossover,
 and tail-window means.
 
-Usage: python experiments/summarize_run.py output/convergence_r3 [tail_n]
+Usage: python experiments/summarize_run.py output/<run dir> [tail_n]
 """
 import json
 import sys
@@ -24,7 +24,9 @@ def mean(xs):
 
 
 def main():
-    d = sys.argv[1] if len(sys.argv) > 1 else "output/convergence_r3"
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    d = sys.argv[1]
     tail_n = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     rows = [r for r in load(f"{d}/metrics.jsonl") if "nrc" in r]
     n = len(rows)

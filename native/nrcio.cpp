@@ -1,12 +1,12 @@
-// nrcio — native IO runtime for the nrc_hpm_tpu framework.
+// nrcio — native IO runtime for the nrc_hpm framework.
 //
 // The reference implements its data loaders natively (OpenVDB ingestion in
 // vk::Texture3D::FromVDB, src/Texture3D.cpp:12-82; EXR via tinyexr,
-// src/Reference.cpp:616-668).  This library is the TPU framework's native
+// src/Reference.cpp:616-668).  This library is this framework's native
 // equivalent: a dependency-free OpenVDB Tree_float_5_4_3 dense decoder and
 // an OpenEXR scanline codec (zlib only), exposed through a C ABI consumed
 // from Python via ctypes (no pybind11 in this image).  The Python
-// implementations in nrc_hpm_tpu/utils/{vdb,exr}.py remain as the portable
+// implementations in nrc_hpm/utils/{vdb,exr}.py remain as the portable
 // fallback and as the oracle the native path is tested against.
 //
 // Build: make -C native    ->  native/libnrcio.so
@@ -55,7 +55,7 @@ void set_error(const char* msg) {
 }
 
 // ---------------------------------------------------------------------------
-// OpenVDB Tree_float_5_4_3 reader (mirrors nrc_hpm_tpu/utils/vdb.py)
+// OpenVDB Tree_float_5_4_3 reader (mirrors nrc_hpm/utils/vdb.py)
 // ---------------------------------------------------------------------------
 constexpr uint32_t COMPRESS_ZIP = 0x1;
 constexpr uint32_t COMPRESS_ACTIVE_MASK = 0x2;

@@ -7,7 +7,7 @@ import json
 
 import pytest
 
-from nrc_hpm_tpu.app import main
+from nrc_hpm.app import main
 
 
 @pytest.mark.slow
@@ -39,9 +39,32 @@ def test_app_cli_mc_smoke(tmp_path):
 def test_app_cli_defaults_parse_17_args(tmp_path):
     """The 17 positional args parse into the same config the defaults
     load (AppConfig.from_argv round-trip through the CLI layer)."""
-    from nrc_hpm_tpu.config import DEFAULT_ARGV, AppConfig
+    from nrc_hpm.config import DEFAULT_ARGV, AppConfig
 
     cfg = AppConfig.from_argv(DEFAULT_ARGV)
     assert cfg.scene.id == 4
     assert cfg.train_ray_length == 32
     assert len(DEFAULT_ARGV) == 17
+
+
+def test_app_cli_seeded_cloud(tmp_path):
+    """--seeded-cloud renders the seeded stand-in volume, so the app runs
+    without the scene's VDB; golden comparisons are off then."""
+    out = tmp_path / "run"
+    rc = main(["--renderer", "mc", "--frames", "2", "--width", "32",
+               "--height", "18", "--platform", "cpu", "--seeded-cloud", "0",
+               "--out", str(out)])
+    assert rc == 0
+    metrics = [json.loads(l) for l in
+               (out / "metrics.jsonl").read_text().splitlines()]
+    frames = [m for m in metrics if "frame" in m]
+    assert [m["frame"] for m in frames] == [0, 1]
+    assert all(m["frame_time_ms"] > 0 and "mc" not in m for m in frames)
+
+
+def test_platform_gpu_exits_nonzero_without_gpu(capsys):
+    """--platform gpu (the default) refuses to run when JAX finds no GPU,
+    instead of falling back to the CPU."""
+    rc = main(["--renderer", "mc", "--frames", "1", "--platform", "gpu"])
+    assert rc != 0
+    assert "no GPU" in capsys.readouterr().err

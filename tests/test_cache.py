@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.config import AppConfig, EncodingConfig
-from nrc_hpm_tpu.models.nrc.cache import (NeuralRadianceCache, luminance,
+from nrc_hpm.config import AppConfig, EncodingConfig
+from nrc_hpm.models.nrc.cache import (NeuralRadianceCache, luminance,
                                           make_loss_fn, make_optimizer)
-from nrc_hpm_tpu.models.nrc.mlp import init_mlp, mlp_apply
+from nrc_hpm.models.nrc.mlp import init_mlp, mlp_apply
 
 
 def _small_cfg(**kw):

@@ -1,6 +1,6 @@
 import numpy as np
 
-from nrc_hpm_tpu.camera import Camera, look_at, perspective, pixel_rays
+from nrc_hpm.camera import Camera, look_at, perspective, pixel_rays
 
 
 def test_perspective_matches_glm():

@@ -4,8 +4,8 @@ import json
 
 import numpy as np
 
-from nrc_hpm_tpu.camera import Camera, camera_move, camera_rotate
-from nrc_hpm_tpu.camera_path import CameraPath
+from nrc_hpm.camera import Camera, camera_move, camera_rotate
+from nrc_hpm.camera_path import CameraPath
 
 
 def _path(tmp_path, doc):

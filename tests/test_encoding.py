@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.config import EncodingConfig
-from nrc_hpm_tpu.models.nrc.encoding import (CompositeEncoding, HashGridSpec,
+from nrc_hpm.config import EncodingConfig
+from nrc_hpm.models.nrc.encoding import (CompositeEncoding, HashGridSpec,
                                              frequency_encode,
                                              hash_grid_encode, init_hash_grid,
                                              one_blob_encode,
@@ -119,7 +119,7 @@ def test_composite_invalid_ids():
 
 
 def test_packed_encode_matches_f32():
-    from nrc_hpm_tpu.models.nrc.encoding import (hash_grid_encode,
+    from nrc_hpm.models.nrc.encoding import (hash_grid_encode,
                                                  hash_grid_encode_packed,
                                                  pack_table_bf16)
     spec = HashGridSpec(n_levels=4, log2_table_size=12)
@@ -134,7 +134,7 @@ def test_packed_encode_matches_f32():
 
 def test_train_encode_forward_matches_packed():
     """hash_grid_encode_train forward == the bf16 packed-gather encode."""
-    from nrc_hpm_tpu.models.nrc.encoding import (
+    from nrc_hpm.models.nrc.encoding import (
         HashGridSpec, hash_grid_encode_packed, hash_grid_encode_train,
         init_hash_grid, pack_table_bf16)
     spec = HashGridSpec(n_levels=4, log2_table_size=10, base_resolution=4)
@@ -150,7 +150,7 @@ def test_train_encode_backward_matches_autodiff():
     """The matmul-scatter backward must equal autodiff of the f32 encode
     up to bf16 forward rounding (the table gradient is linear in the
     upstream grad and independent of the stored values)."""
-    from nrc_hpm_tpu.models.nrc.encoding import (
+    from nrc_hpm.models.nrc.encoding import (
         HashGridSpec, hash_grid_encode, hash_grid_encode_train,
         init_hash_grid)
     spec = HashGridSpec(n_levels=4, log2_table_size=10, base_resolution=4)
@@ -176,7 +176,7 @@ def test_hashgrid_backward_loop_oracle():
     """Autodiff table gradient vs an explicit loop over corners (slow
     trusted oracle): dL/dtable[e, f] = sum over (sample, corner) hits of
     w * g[sample, level, f]."""
-    from nrc_hpm_tpu.models.nrc.encoding import (
+    from nrc_hpm.models.nrc.encoding import (
         HashGridSpec, _corner_indices, hash_grid_encode, init_hash_grid)
     spec = HashGridSpec(n_levels=3, log2_table_size=8, base_resolution=4)
     key = jax.random.PRNGKey(3)

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.utils.exr import read_exr_rgba, write_exr
+from nrc_hpm.utils.exr import read_exr_rgba, write_exr
 
 
 def test_golden_image_loads():

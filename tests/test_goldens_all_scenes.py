@@ -2,7 +2,7 @@
 
 ``reference/<id>/low.exr`` are 192x108 goldens of 256 accumulated
 64-bounce MC frames (1024 for scene 3's canonical ``reference/3/0.exr``),
-generated on the TPU by experiments/make_goldens.py
+generated from the WDAS cloud by experiments/make_goldens.py
 through reference.generate_golden — the working form of the reference's
 dead GenRefImages branch (Reference.cpp:566-671, SURVEY quirk 3).  Scene 3
 additionally gets ``reference/3/0.exr`` (the upstream repo never shipped
@@ -19,10 +19,11 @@ import os
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.camera import Camera
-from nrc_hpm_tpu.config import AppConfig, SceneConfig
-from nrc_hpm_tpu.reference import GoldenReference
-from nrc_hpm_tpu.renderer import McRenderer
+from nrc_hpm.camera import Camera
+from nrc_hpm.config import AppConfig, SceneConfig
+from nrc_hpm.reference import GoldenReference
+from nrc_hpm.renderer import McRenderer
+from nrc_hpm.volume import Volume
 
 W, H, FRAMES = 96, 54, 10
 
@@ -54,13 +55,14 @@ _GATE = {  # scene_id: (center, tol)
 
 
 @pytest.mark.parametrize("scene_id", range(6))
-def test_short_mc_run_matches_checked_in_golden(scene_id):
+def test_short_mc_run_matches_checked_in_golden(scene_id, cloud_grid):
     golden = GoldenReference.load(
         scene_id, search_paths=("reference",), names=("low.exr",))
     assert golden.image.shape == (108, 192, 4)
     cfg = AppConfig(scene=SceneConfig.preset(scene_id), render_width=W,
                     render_height=H, mc_path_length=32)
-    r = McRenderer(cfg)
+    r = McRenderer(cfg, vol=Volume.from_dense(
+        cloud_grid.data, cfg.scene.density, cfg.scene.volume_g))
     cam = Camera.reference_camera(aspect=W / H)
     img = np.asarray(r.render(cam, frames=FRAMES, seed=scene_id + 1))
     res = golden.compare(img)

@@ -1,12 +1,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nrc_hpm_tpu.config import AppConfig, SceneConfig
-from nrc_hpm_tpu.integrator import TraceParams, trace_fixed, trace_primary
-from nrc_hpm_tpu.lights import (DirLight, HdrEnvMap, LightFlags, Lights,
+from nrc_hpm.config import AppConfig, SceneConfig
+from nrc_hpm.integrator import TraceParams, trace_fixed, trace_primary
+from nrc_hpm.lights import (DirLight, HdrEnvMap, LightFlags, Lights,
                                 PointLight)
-from nrc_hpm_tpu.utils import rng
-from nrc_hpm_tpu.volume import Volume
+from nrc_hpm.utils import rng
+from nrc_hpm.volume import Volume
 
 
 def _lights(dir_s=0.0, point_s=0.0, env_s=0.0):
@@ -147,10 +147,10 @@ def test_env_fixed16_flag_changes_env_term_only(small_volume):
     import jax
     import jax.numpy as jnp
 
-    from nrc_hpm_tpu.integrator import TraceParams, trace_scene
-    from nrc_hpm_tpu.lights import LightFlags, Lights, lights_from_scene
-    from nrc_hpm_tpu.config import SceneConfig
-    from nrc_hpm_tpu.utils import rng
+    from nrc_hpm.integrator import TraceParams, trace_scene
+    from nrc_hpm.lights import LightFlags, Lights, lights_from_scene
+    from nrc_hpm.config import SceneConfig
+    from nrc_hpm.utils import rng
 
     vol = small_volume
     lights = lights_from_scene(SceneConfig.preset(5))
@@ -194,8 +194,8 @@ def test_unrolled_primary_matches_while_loop(small_volume):
 
     import jax
 
-    from nrc_hpm_tpu.integrator import trace_path
-    from nrc_hpm_tpu.lights import lights_from_scene
+    from nrc_hpm.integrator import trace_path
+    from nrc_hpm.lights import lights_from_scene
 
     vol = small_volume
     lights = lights_from_scene(SceneConfig.preset(4))

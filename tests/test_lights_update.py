@@ -3,8 +3,8 @@ import dataclasses
 
 import numpy as np
 
-from nrc_hpm_tpu.config import SceneConfig
-from nrc_hpm_tpu.lights import (DirLight, dir_from_angles, lights_from_scene,
+from nrc_hpm.config import SceneConfig
+from nrc_hpm.lights import (DirLight, dir_from_angles, lights_from_scene,
                                 update_scene)
 
 

@@ -18,10 +18,11 @@ import os
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.camera import Camera
-from nrc_hpm_tpu.config import AppConfig, SceneConfig
-from nrc_hpm_tpu.reference import GoldenReference
-from nrc_hpm_tpu.renderer import McRenderer
+from nrc_hpm.camera import Camera
+from nrc_hpm.config import AppConfig, SceneConfig
+from nrc_hpm.reference import GoldenReference
+from nrc_hpm.renderer import McRenderer
+from nrc_hpm.volume import Volume
 
 W, H, FRAMES = 96, 54, 256
 
@@ -36,12 +37,13 @@ pytestmark = [
 
 
 @pytest.mark.parametrize("scene_id", [1, 2])
-def test_long_budget_absolute_bias(scene_id):
+def test_long_budget_absolute_bias(scene_id, cloud_grid):
     golden = GoldenReference.load(
         scene_id, search_paths=("reference",), names=("low.exr",))
     cfg = AppConfig(scene=SceneConfig.preset(scene_id), render_width=W,
                     render_height=H, mc_path_length=32)
-    r = McRenderer(cfg)
+    r = McRenderer(cfg, vol=Volume.from_dense(
+        cloud_grid.data, cfg.scene.density, cfg.scene.volume_g))
     cam = Camera.reference_camera(aspect=W / H)
     img = np.asarray(r.render(cam, frames=FRAMES, seed=scene_id + 17))
     res = golden.compare(img)  # UNCLAMPED

@@ -1,17 +1,18 @@
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.camera import Camera
-from nrc_hpm_tpu.config import AppConfig, SceneConfig
-from nrc_hpm_tpu.reference import GoldenReference, compare_images
-from nrc_hpm_tpu.renderer import McRenderer
+from nrc_hpm.camera import Camera
+from nrc_hpm.config import AppConfig, SceneConfig
+from nrc_hpm.reference import GoldenReference, compare_images
+from nrc_hpm.renderer import McRenderer
+from nrc_hpm.volume import Volume, seeded_volume
 
 
 @pytest.fixture(scope="module")
 def small_mc():
     cfg = AppConfig(scene=SceneConfig.preset(4), render_width=64,
                     render_height=36, mc_path_length=8)
-    return McRenderer(cfg)
+    return McRenderer(cfg, vol=seeded_volume(cfg.scene))
 
 
 def test_mc_frame_basics(small_mc):
@@ -56,12 +57,13 @@ def test_mc_blend_is_running_mean(small_mc):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_mc_statistical_match_vs_golden():
-    """The headline oracle: a short CPU MC run must land near the golden
-    EXR's mean brightness (8192-frame, 64-bounce accumulation)."""
+def test_mc_statistical_match_vs_golden(cloud_grid):
+    """The headline oracle: a short CPU MC run of the WDAS cloud must land
+    near the golden EXR's mean brightness (8192-frame, 64-bounce
+    accumulation)."""
     cfg = AppConfig(scene=SceneConfig.preset(4), render_width=96,
                     render_height=54, mc_path_length=32)
-    r = McRenderer(cfg)
+    r = McRenderer(cfg, vol=Volume.from_dense(cloud_grid.data, 0.6, 0.8))
     cam = Camera.reference_camera(aspect=96 / 54)
     img = np.asarray(r.render(cam, frames=12, seed=1))
     res = GoldenReference.load(4).compare(img)

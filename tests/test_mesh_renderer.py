@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.camera import Camera
-from nrc_hpm_tpu.models.mesh import Material, Model, load_obj, make_cube
-from nrc_hpm_tpu.models.raster import ModelRenderer
+from nrc_hpm.camera import Camera
+from nrc_hpm.models.mesh import Material, Model, load_obj, make_cube
+from nrc_hpm.models.raster import ModelRenderer
 
 
 def test_cube_geometry():
@@ -65,7 +65,7 @@ def test_model_transform_moves_cube():
 
 
 def test_bilinear_sampler_exact_at_centers_and_interp():
-    from nrc_hpm_tpu.utils.texture import bilinear_sample
+    from nrc_hpm.utils.texture import bilinear_sample
     tex = np.zeros((2, 2, 3), np.float32)
     tex[0, 0] = [1, 0, 0]
     tex[0, 1] = [0, 1, 0]
@@ -85,8 +85,8 @@ def test_textured_cube_renders_texture_colors():
     """Diffuse textures must be sampled per fragment (src/Material.cpp,
     src/Texture2D.cpp): a cube textured half red / half green must show
     both colors on screen, matching each fragment's uv."""
-    from nrc_hpm_tpu.models.mesh import make_cube
-    from nrc_hpm_tpu.models.raster import ModelRenderer
+    from nrc_hpm.models.mesh import make_cube
+    from nrc_hpm.models.raster import ModelRenderer
 
     model = make_cube(1.0)
     tex = np.zeros((8, 8, 3), np.float32)

@@ -41,7 +41,7 @@ def test_two_process_matches_single_process(tmp_path):
 
     procs = []
     for pid in range(2):
-        cmd = [sys.executable, "-m", "nrc_hpm_tpu.parallel.multihost",
+        cmd = [sys.executable, "-m", "nrc_hpm.parallel.multihost",
                "--coordinator", coord, "--num-processes", "2",
                "--process-id", str(pid), "--local-devices", "4",
                "--platform", "cpu", "--steps", "2",
@@ -55,7 +55,7 @@ def test_two_process_matches_single_process(tmp_path):
     img2 = np.load(outs[0])
 
     # single-process 8-device reference
-    cmd = [sys.executable, "-m", "nrc_hpm_tpu.parallel.multihost",
+    cmd = [sys.executable, "-m", "nrc_hpm.parallel.multihost",
            "--coordinator", f"127.0.0.1:{_free_port()}",
            "--num-processes", "1", "--process-id", "0",
            "--local-devices", "8", "--platform", "cpu", "--steps", "2",

@@ -1,8 +1,9 @@
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.camera import Camera
-from nrc_hpm_tpu.config import AppConfig, EncodingConfig, SceneConfig
+from nrc_hpm.camera import Camera
+from nrc_hpm.config import AppConfig, EncodingConfig, SceneConfig
+from nrc_hpm.volume import seeded_volume
 
 
 def _cfg(**kw):
@@ -18,10 +19,13 @@ def _cfg(**kw):
     return AppConfig(**base)
 
 
+_VOL = seeded_volume(SceneConfig.preset(4))
+
+
 @pytest.fixture(scope="module")
 def nrc_renderer():
-    from nrc_hpm_tpu.renderer import NrcRenderer
-    return NrcRenderer(_cfg())
+    from nrc_hpm.renderer import NrcRenderer
+    return NrcRenderer(_cfg(), vol=_VOL)
 
 
 def test_train_subset_geometry(nrc_renderer):
@@ -62,8 +66,8 @@ def test_nrc_frozen_does_not_train(nrc_renderer):
 
 
 def test_nrc_loss_decreases_over_training():
-    from nrc_hpm_tpu.renderer import NrcRenderer
-    r = NrcRenderer(_cfg(learning_rate=0.01))
+    from nrc_hpm.renderer import NrcRenderer
+    r = NrcRenderer(_cfg(learning_rate=0.01), vol=_VOL)
     cam = Camera.reference_camera(aspect=2.0)
     state = r.init_state(2)
     losses = []
@@ -79,10 +83,10 @@ def test_nrc_loss_decreases_over_training():
 
 def test_nrc_composite_adds_cache_radiance():
     """With show_nrc, scattered pixels get primary + max(0, nrc) * w."""
-    from nrc_hpm_tpu.renderer import NrcRenderer
+    from nrc_hpm.renderer import NrcRenderer
     cfg = _cfg()
-    r_on = NrcRenderer(cfg, show_nrc=True, blend=False)
-    r_off = NrcRenderer(cfg, show_nrc=False, blend=False)
+    r_on = NrcRenderer(cfg, vol=_VOL, show_nrc=True, blend=False)
+    r_off = NrcRenderer(cfg, vol=_VOL, show_nrc=False, blend=False)
     cam = Camera.reference_camera(aspect=2.0)
     s_on = r_on.step(r_on.init_state(3), cam, train=False)
     s_off = r_off.step(r_off.init_state(3), cam, train=False)
@@ -98,14 +102,13 @@ def test_compact_matches_dense_primary():
     fp reassociation across shapes)."""
     import dataclasses
     import jax.numpy as jnp
-    from nrc_hpm_tpu.camera import Camera, pixel_rays
-    from nrc_hpm_tpu.integrator import TraceParams
-    from nrc_hpm_tpu.lights import LightFlags, lights_from_scene
-    from nrc_hpm_tpu.renderer import (_volume_from_config, primary_pass,
-                                      primary_pass_compact)
-    from nrc_hpm_tpu.utils import rng
+    from nrc_hpm.camera import Camera, pixel_rays
+    from nrc_hpm.integrator import TraceParams
+    from nrc_hpm.lights import LightFlags, lights_from_scene
+    from nrc_hpm.renderer import primary_pass, primary_pass_compact
+    from nrc_hpm.utils import rng
     cfg = _cfg()
-    vol = _volume_from_config(cfg)
+    vol = seeded_volume(cfg.scene)
     lights = lights_from_scene(cfg.scene)
     params = TraceParams(flags=LightFlags.from_scene(cfg.scene))
     cam = Camera.reference_camera(aspect=2.0)
@@ -130,9 +133,9 @@ def test_compact_overflow_falls_back_dense():
     """Camera inside the cloud: every ray hits, count > capacity, and the
     dense branch must produce a valid image."""
     import jax.numpy as jnp
-    from nrc_hpm_tpu.renderer import NrcRenderer
-    from nrc_hpm_tpu.camera import Camera
-    r = NrcRenderer(_cfg())
+    from nrc_hpm.renderer import NrcRenderer
+    from nrc_hpm.camera import Camera
+    r = NrcRenderer(_cfg(), vol=_VOL)
     cam = Camera.create((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), aspect=2.0)
     state = r.step(r.init_state(4), cam, train=False)
     img = np.asarray(state.image)
@@ -156,21 +159,21 @@ def test_nrc_quality_converges_below_mse_threshold():
     swung 0.49..1.50 purely from compare noise).  With the fixed key the
     trajectory is deterministic and monotone: ratio 0.94 @ 15 frames,
     0.89 @ 45, 0.88 @ 120."""
-    from nrc_hpm_tpu.camera import Camera
-    from nrc_hpm_tpu.reference import GoldenReference
-    from nrc_hpm_tpu.renderer import McRenderer, NrcRenderer
+    from nrc_hpm.camera import Camera
+    from nrc_hpm.reference import GoldenReference
+    from nrc_hpm.renderer import McRenderer, NrcRenderer
 
     cfg = _cfg(train_ray_length=6, mc_path_length=8)
     W, H = cfg.render_width, cfg.render_height
     cam = Camera.reference_camera(aspect=W / H)
 
-    mc = McRenderer(cfg)
+    mc = McRenderer(cfg, vol=seeded_volume(cfg.scene))
     golden_img = np.asarray(mc.render(cam, frames=48, seed=7))
     golden = GoldenReference(golden_img, camera=cam)
 
     import jax
 
-    from nrc_hpm_tpu.renderer import reset_accumulation
+    from nrc_hpm.renderer import reset_accumulation
 
     def accumulated_compare(renderer, st, frames=24):
         # frozen-cache accumulation under the ref camera with a FIXED
@@ -183,7 +186,7 @@ def test_nrc_quality_converges_below_mse_threshold():
             tmp = renderer.step(tmp, golden.camera, train=False)
         return golden.compare(np.asarray(tmp.image))
 
-    r = NrcRenderer(cfg)
+    r = NrcRenderer(cfg, vol=seeded_volume(cfg.scene))
     state = r.init_state(0)
     for _ in range(45):
         state = r.step(state, cam, train=True)
@@ -192,7 +195,7 @@ def test_nrc_quality_converges_below_mse_threshold():
 
     # an UNTRAINED cache under the IDENTICAL compare keys: training must
     # strictly reduce the error of the cache term
-    r2 = NrcRenderer(cfg)
+    r2 = NrcRenderer(cfg, vol=seeded_volume(cfg.scene))
     res0 = accumulated_compare(r2, r2.init_state(0))
 
     assert np.isfinite(res.mse) and np.isfinite(res1.mse)
@@ -211,13 +214,13 @@ def test_cache_bootstrap_flag_trains_finite_and_default_off():
     default path untouched, (b) produce finite training with the cache
     prediction folded into targets."""
     import jax
-    from nrc_hpm_tpu.renderer import NrcRenderer
+    from nrc_hpm.renderer import NrcRenderer
     cam = Camera.reference_camera(aspect=2.0)
 
     # short train rays in the dense preset keep many lanes alive at the
     # bounce cap, so the bootstrap term is actually exercised
     cfg_on = _cfg(train_ray_length=2, train_cache_bootstrap=True)
-    r_on = NrcRenderer(cfg_on)
+    r_on = NrcRenderer(cfg_on, vol=seeded_volume(cfg_on.scene))
     st = r_on.init_state(3)
     for _ in range(2):
         st = r_on.step(st, cam, train=True)
@@ -227,9 +230,9 @@ def test_cache_bootstrap_flag_trains_finite_and_default_off():
 
     # flag off matches a renderer built without the field ever set
     cfg_off = _cfg(train_ray_length=2)
-    r_a = NrcRenderer(cfg_off)
+    r_a = NrcRenderer(cfg_off, vol=seeded_volume(cfg_off.scene))
     sa = r_a.step(r_a.init_state(3), cam, train=True)
-    r_b = NrcRenderer(cfg_off)
+    r_b = NrcRenderer(cfg_off, vol=seeded_volume(cfg_off.scene))
     sb = r_b.step(r_b.init_state(3), cam, train=True)
     np.testing.assert_array_equal(np.asarray(sa.nrc.params["mlp"]["layers"][0]),
                                   np.asarray(sb.nrc.params["mlp"]["layers"][0]))

@@ -5,13 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.camera import Camera
-from nrc_hpm_tpu.config import AppConfig, RestirConfig, SceneConfig
-from nrc_hpm_tpu.models.restir import (RestirRenderer, _local_init,
+from nrc_hpm.camera import Camera
+from nrc_hpm.config import AppConfig, RestirConfig, SceneConfig
+from nrc_hpm.models.restir import (RestirRenderer, _local_init,
                                        _temporal_reuse, _shade)
-from nrc_hpm_tpu.integrator import TraceParams
-from nrc_hpm_tpu.lights import LightFlags, lights_from_scene
-from nrc_hpm_tpu.utils import rng
+from nrc_hpm.integrator import TraceParams
+from nrc_hpm.lights import LightFlags, lights_from_scene
+from nrc_hpm.utils import rng
+from nrc_hpm.volume import seeded_volume
 
 
 W, H = 48, 32
@@ -23,7 +24,7 @@ def renderer():
         scene=SceneConfig.preset(4), render_width=W, render_height=H,
         restir=RestirConfig(path_vertex_count=4, spatial_kernel_size=3,
                             temporal_kernel_size=2))
-    return RestirRenderer(cfg)
+    return RestirRenderer(cfg, vol=seeded_volume(cfg.scene))
 
 
 def test_restir_frame_basics(renderer):
@@ -101,7 +102,7 @@ def test_shade_background_passthrough():
     cfg = AppConfig(scene=SceneConfig.preset(4), render_width=8,
                     render_height=8,
                     restir=RestirConfig(path_vertex_count=3))
-    r = RestirRenderer(cfg)
+    r = RestirRenderer(cfg, vol=seeded_volume(cfg.scene))
     st = r.init_state(0)
     # hand-build: no pixel scattered, background = 0.25
     pixel_info = jnp.concatenate(
@@ -192,7 +193,7 @@ def test_weighted_selection_prefers_high_phase_candidate():
     np.testing.assert_array_equal(np.asarray(out_stats[..., 1]), 2.0)
     np.testing.assert_allclose(np.asarray(out_res[..., 2, 0]), 0.0)
     # the recorded w_sel is the dominant weight (hg_phase(+1) at g=0.9)
-    from nrc_hpm_tpu.sampling import hg_phase
+    from nrc_hpm.sampling import hg_phase
     np.testing.assert_allclose(
         np.asarray(out_mis[..., 1]),
         float(hg_phase(jnp.float32(1.0), jnp.float32(0.9))), rtol=1e-5)
@@ -205,7 +206,7 @@ def test_ris_contribution_weight_scales_suffix():
     cfg = AppConfig(scene=SceneConfig.preset(4), render_width=24,
                     render_height=24,
                     restir=RestirConfig(path_vertex_count=3))
-    r = RestirRenderer(cfg)
+    r = RestirRenderer(cfg, vol=seeded_volume(cfg.scene))
     cam = Camera.reference_camera(aspect=1.0)
     st = r.init_state(0)
     st = r.step(st, cam)   # real reservoirs/paths
@@ -242,10 +243,10 @@ def test_restir_statistically_matches_mc_structure():
     the MC image."""
     import dataclasses
 
-    from nrc_hpm_tpu.camera import Camera
-    from nrc_hpm_tpu.config import AppConfig, SceneConfig
-    from nrc_hpm_tpu.models.restir import RestirRenderer
-    from nrc_hpm_tpu.renderer import McRenderer
+    from nrc_hpm.camera import Camera
+    from nrc_hpm.config import AppConfig, SceneConfig
+    from nrc_hpm.models.restir import RestirRenderer
+    from nrc_hpm.renderer import McRenderer
 
     W, H = 64, 36
     cfg = dataclasses.replace(
@@ -254,10 +255,10 @@ def test_restir_statistically_matches_mc_structure():
         max_track_steps=64)
     cam = Camera.reference_camera(aspect=W / H)
 
-    mc = McRenderer(cfg)
+    mc = McRenderer(cfg, vol=seeded_volume(cfg.scene))
     mc_img = np.asarray(mc.render(cam, frames=24, seed=1))
 
-    rs = RestirRenderer(cfg)
+    rs = RestirRenderer(cfg, vol=seeded_volume(cfg.scene))
     state = rs.init_state(2)
     acc = np.zeros((H, W, 4), np.float64)
     frames = 12

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nrc_hpm_tpu.ring_buffer import (RingBuffer, ring_pop, ring_push,
+from nrc_hpm.ring_buffer import (RingBuffer, ring_pop, ring_push,
                                      ring_wrap)
 
 

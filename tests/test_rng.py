@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nrc_hpm_tpu.utils import rng
+from nrc_hpm.utils import rng
 
 
 def _hash_np(x: np.ndarray) -> np.ndarray:

@@ -1,9 +1,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nrc_hpm_tpu.sampling import (dir_to_spherical_norm, hg_phase,
+from nrc_hpm.sampling import (dir_to_spherical_norm, hg_phase,
                                   new_ray_dir, sample_hg_cos_theta)
-from nrc_hpm_tpu.utils import rng
+from nrc_hpm.utils import rng
 
 
 def test_hg_phase_normalization():

@@ -2,8 +2,9 @@ import jax
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.camera import Camera
-from nrc_hpm_tpu.config import AppConfig, EncodingConfig, SceneConfig
+from nrc_hpm.camera import Camera
+from nrc_hpm.config import AppConfig, EncodingConfig, SceneConfig
+from nrc_hpm.volume import seeded_volume
 
 
 def _cfg(**kw):
@@ -18,16 +19,19 @@ def _cfg(**kw):
     return AppConfig(**base)
 
 
+_VOL = seeded_volume(SceneConfig.preset(4))
+
+
 @pytest.fixture(scope="module")
 def mesh8():
-    from nrc_hpm_tpu.parallel.sharding import make_mesh
+    from nrc_hpm.parallel.sharding import make_mesh
     assert len(jax.devices()) >= 8, "conftest must provide 8 cpu devices"
     return make_mesh(8)
 
 
 def test_sharded_step_runs_and_stays_finite(mesh8):
-    from nrc_hpm_tpu.parallel.sharding import ShardedNrcRenderer
-    r = ShardedNrcRenderer(_cfg(), mesh=mesh8)
+    from nrc_hpm.parallel.sharding import ShardedNrcRenderer
+    r = ShardedNrcRenderer(_cfg(), vol=_VOL, mesh=mesh8)
     cam = Camera.reference_camera(aspect=2.0)
     state = r.init_state(0)
     for _ in range(2):
@@ -50,11 +54,11 @@ def test_sharded_matches_single_chip_frozen(mesh8):
     reduction algorithms for different batch shapes, so ~1e-6 fp wiggle can
     chaotically flip individual stochastic events — compare statistically:
     nearly every pixel identical, image mean preserved."""
-    from nrc_hpm_tpu.parallel.sharding import ShardedNrcRenderer
-    from nrc_hpm_tpu.renderer import NrcRenderer
+    from nrc_hpm.parallel.sharding import ShardedNrcRenderer
+    from nrc_hpm.renderer import NrcRenderer
     cfg = _cfg()
-    single = NrcRenderer(cfg)
-    sharded = ShardedNrcRenderer(cfg, mesh=mesh8)
+    single = NrcRenderer(cfg, vol=_VOL)
+    sharded = ShardedNrcRenderer(cfg, vol=_VOL, mesh=mesh8)
     cam = Camera.reference_camera(aspect=2.0)
     img_a = np.asarray(
         single.step(single.init_state(7), cam, train=False).image)
@@ -70,11 +74,11 @@ def test_sharded_training_close_to_single_chip(mesh8):
     batch gradient up to fp reassociation, so parameters track closely.
     (Ring pops differ — per-shard rings — so later frames may diverge for
     non-scattered train pixels; frame 1 has none popped-trained yet.)"""
-    from nrc_hpm_tpu.parallel.sharding import ShardedNrcRenderer
-    from nrc_hpm_tpu.renderer import NrcRenderer
+    from nrc_hpm.parallel.sharding import ShardedNrcRenderer
+    from nrc_hpm.renderer import NrcRenderer
     cfg = _cfg()
-    single = NrcRenderer(cfg)
-    sharded = ShardedNrcRenderer(cfg, mesh=mesh8)
+    single = NrcRenderer(cfg, vol=_VOL)
+    sharded = ShardedNrcRenderer(cfg, vol=_VOL, mesh=mesh8)
     cam = Camera.reference_camera(aspect=2.0)
     st_a = single.init_state(7)
     st_b = sharded.init_state(7)
@@ -107,12 +111,12 @@ def test_sharded_frame1_global_batch_exact(mesh8):
         (update ~ lr * g/(|g|+eps)), amplifying 1e-7-relative gradient
         reassociation noise on near-zero-gradient weights; measured max
         abs deviation at this scale is 4.3e-5 (lr 0.01)."""
-    from nrc_hpm_tpu.parallel.sharding import ShardedNrcRenderer, make_mesh
+    from nrc_hpm.parallel.sharding import ShardedNrcRenderer, make_mesh
     cfg = _cfg()
     cam = Camera.reference_camera(aspect=2.0)
     out = {}
     for n in (1, 4):
-        r = ShardedNrcRenderer(cfg, mesh=make_mesh(n))
+        r = ShardedNrcRenderer(cfg, vol=_VOL, mesh=make_mesh(n))
         st = r.step(r.init_state(7), cam, train=True)
         out[n] = (float(st.nrc.loss),
                   jax.tree.map(np.asarray, st.nrc.params))
@@ -130,13 +134,13 @@ def test_non_divisible_dims_pad_and_match_single_chip(mesh8):
     """Height 30 over 8 devices (pads to 32 rows) + train batches that
     don't divide the mesh (weight-masked lanes): the cropped sharded frame
     must match the single-chip frame and training must stay equivalent."""
-    from nrc_hpm_tpu.parallel.sharding import ShardedNrcRenderer
-    from nrc_hpm_tpu.renderer import NrcRenderer
-    from nrc_hpm_tpu.parallel.sharding import make_mesh
+    from nrc_hpm.parallel.sharding import ShardedNrcRenderer
+    from nrc_hpm.renderer import NrcRenderer
+    from nrc_hpm.parallel.sharding import make_mesh
     # rows: height 30 over 8 devices pads to 32
     cfg = _cfg(render_height=30)
-    single = NrcRenderer(cfg)
-    sharded = ShardedNrcRenderer(cfg, mesh=mesh8)
+    single = NrcRenderer(cfg, vol=_VOL)
+    sharded = ShardedNrcRenderer(cfg, vol=_VOL, mesh=mesh8)
     assert sharded.pad_h == 32 and sharded.local_h == 4
     cam = Camera.reference_camera(aspect=64 / 30)
 
@@ -150,7 +154,7 @@ def test_non_divisible_dims_pad_and_match_single_chip(mesh8):
 
     # train batches: power-of-two batch sizes only pad on non-power-of-two
     # meshes — 64-pixel batches over 3 shards -> 22 lanes/shard, 2 masked
-    sharded = ShardedNrcRenderer(cfg, mesh=make_mesh(3))
+    sharded = ShardedNrcRenderer(cfg, vol=_VOL, mesh=make_mesh(3))
     assert sharded._padded_train and sharded._bs_l == 22
     st_a = single.init_state(7)
     st_b = sharded.init_state(7)

@@ -1,13 +1,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from nrc_hpm_tpu.transmittance import (delta_track, fixed_step_transmittance,
+from nrc_hpm.transmittance import (delta_track, fixed_step_transmittance,
                                        ratio_track)
-from nrc_hpm_tpu.volume import Volume, find_entry_exit
+from nrc_hpm.volume import Volume, find_entry_exit
 
 
 def _states(n, salt=0.123):
-    from nrc_hpm_tpu.utils import rng
+    from nrc_hpm.utils import rng
     uv = jnp.stack([jnp.linspace(0, 1, n), jnp.linspace(1, 0, n)], -1)
     return rng.init_state(uv, jnp.asarray([salt, 0.57, 0.31, 0.77]))
 
@@ -104,7 +104,7 @@ def test_rng_state_divergence_masked():
 # ---------------------------------------------------------------------------
 
 def test_ratio_track_fast_matches_sequential_stats(small_volume):
-    from nrc_hpm_tpu.transmittance import ratio_track_fast
+    from nrc_hpm.transmittance import ratio_track_fast
     n = 20000
     sky = np.asarray(small_volume.sky_size)
     start = jnp.broadcast_to(jnp.asarray([-sky[0] / 2, 0, 0]), (n, 3))
@@ -116,7 +116,7 @@ def test_ratio_track_fast_matches_sequential_stats(small_volume):
 
 
 def test_delta_track_fast_matches_sequential_stats():
-    from nrc_hpm_tpu.transmittance import delta_track_fast
+    from nrc_hpm.transmittance import delta_track_fast
     vol = Volume.homogeneous_cube(4, 1.0, density_factor=0.15, g=0.0)
     sky = np.asarray(vol.sky_size)
     n = 30000
@@ -134,7 +134,7 @@ def test_delta_track_fast_matches_sequential_stats():
 
 
 def test_fast_inactive_lanes_resolve_immediately():
-    from nrc_hpm_tpu.transmittance import delta_track_fast, ratio_track_fast
+    from nrc_hpm.transmittance import delta_track_fast, ratio_track_fast
     vol = Volume.homogeneous_cube(4, 1.0, 0.5, 0.0)
     ro = jnp.zeros((4, 3), jnp.float32)
     rd = jnp.broadcast_to(jnp.asarray([1.0, 0, 0]), (4, 3))
@@ -149,7 +149,7 @@ def test_fast_inactive_lanes_resolve_immediately():
 
 
 def test_fast_vacuum_behaviour():
-    from nrc_hpm_tpu.transmittance import delta_track_fast, ratio_track_fast
+    from nrc_hpm.transmittance import delta_track_fast, ratio_track_fast
     vol = Volume.homogeneous_cube(4, 0.0, 0.6, 0.0)
     n = 64
     ro = jnp.zeros((n, 3), jnp.float32)
@@ -165,7 +165,7 @@ def test_fast_vacuum_behaviour():
 # ---------------------------------------------------------------------------
 
 def test_ratio_track_pw_matches_sequential_stats(small_volume):
-    from nrc_hpm_tpu.transmittance import ratio_track_pw
+    from nrc_hpm.transmittance import ratio_track_pw
     n = 20000
     sky = np.asarray(small_volume.sky_size)
     start = jnp.broadcast_to(jnp.asarray([-sky[0] / 2, 0, 0]), (n, 3))
@@ -178,7 +178,7 @@ def test_ratio_track_pw_matches_sequential_stats(small_volume):
 
 
 def test_delta_track_pw_matches_sequential_stats(small_volume):
-    from nrc_hpm_tpu.transmittance import delta_track_pw
+    from nrc_hpm.transmittance import delta_track_pw
     n = 30000
     sky = np.asarray(small_volume.sky_size)
     ro = jnp.broadcast_to(jnp.asarray([-sky[0], 0.5, 0.5]), (n, 3))
@@ -194,7 +194,7 @@ def test_delta_track_pw_matches_sequential_stats(small_volume):
 
 
 def test_pw_empty_volume_zero_events():
-    from nrc_hpm_tpu.transmittance import delta_track_pw, ratio_track_pw
+    from nrc_hpm.transmittance import delta_track_pw, ratio_track_pw
     vol = Volume.homogeneous_cube(4, 0.0, 0.6, 0.0)
     n = 64
     ro = jnp.zeros((n, 3), jnp.float32)
@@ -206,7 +206,7 @@ def test_pw_empty_volume_zero_events():
 
 
 def test_pw_homogeneous_exit_probability():
-    from nrc_hpm_tpu.transmittance import delta_track_pw
+    from nrc_hpm.transmittance import delta_track_pw
     vol = Volume.homogeneous_cube(4, 1.0, 0.15, 0.0)
     sky = np.asarray(vol.sky_size)
     n = 40000
@@ -217,12 +217,12 @@ def test_pw_homogeneous_exit_probability():
     assert abs(np.asarray(exited).mean() - p_exit) < 0.01
 
 
-def test_pw_heterogeneous_transmittance_unbiased(cloud_grid):
+def test_pw_heterogeneous_transmittance_unbiased(seeded_grid):
     """Cloud chord: E[pw ratio-track] must equal the analytic Beer-Lambert
     transmittance of the quantized density line integral."""
-    from nrc_hpm_tpu.transmittance import ratio_track_pw
-    from nrc_hpm_tpu.volume import get_density
-    vol = Volume.from_dense(cloud_grid.data, 0.6, 0.8)
+    from nrc_hpm.transmittance import ratio_track_pw
+    from nrc_hpm.volume import get_density
+    vol = Volume.from_dense(seeded_grid, 0.6, 0.8)
     sky = np.asarray(vol.sky_size)
     n = 60000
     start = jnp.broadcast_to(jnp.asarray([-sky[0] / 2, -3.0, 5.0]), (n, 3))

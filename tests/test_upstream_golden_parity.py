@@ -47,7 +47,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _downsample_means(scene_id):
-    from nrc_hpm_tpu.utils.exr import read_exr_rgba
+    from nrc_hpm.utils.exr import read_exr_rgba
     up = np.asarray(read_exr_rgba(f"{UPSTREAM}/{scene_id}/0.exr"))
     low = np.asarray(read_exr_rgba(f"reference/{scene_id}/low.exr"))
     assert up.shape == (1080, 1920, 4)

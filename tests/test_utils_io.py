@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.utils.png import read_png, write_png
-from nrc_hpm_tpu.utils.exr import read_radiance_hdr
+from nrc_hpm.utils.png import read_png, write_png
+from nrc_hpm.utils.exr import read_radiance_hdr
 
 
 def test_png_roundtrip_rgb(tmp_path):
@@ -56,7 +56,7 @@ def test_hdr_reader_flat(tmp_path):
 
 
 def test_camera_controllers():
-    from nrc_hpm_tpu.camera import (Camera, camera_move, camera_rotate,
+    from nrc_hpm.camera import (Camera, camera_move, camera_rotate,
                                     camera_rotate_around_origin)
     cam = Camera.reference_camera()
     cam2, (p, v) = camera_move(cam, (64, 0, 0), (-1, 0, 0), (0.5, 0.2, 1.0))
@@ -71,9 +71,9 @@ def test_camera_controllers():
 
 def test_checkpoint_roundtrip(tmp_path):
     import jax
-    from nrc_hpm_tpu.config import AppConfig, EncodingConfig
-    from nrc_hpm_tpu.models.nrc.cache import NeuralRadianceCache
-    from nrc_hpm_tpu.utils.checkpoint import load_pytree, save_pytree
+    from nrc_hpm.config import AppConfig, EncodingConfig
+    from nrc_hpm.models.nrc.cache import NeuralRadianceCache
+    from nrc_hpm.utils.checkpoint import load_pytree, save_pytree
     cfg = AppConfig(nn_width=16, nn_depth=2,
                     encoding=EncodingConfig(n_levels=2, log2_hashmap_size=10))
     cache = NeuralRadianceCache(cfg)
@@ -89,8 +89,8 @@ def test_checkpoint_roundtrip(tmp_path):
 
 def test_dynamic_scene_update():
     import dataclasses
-    from nrc_hpm_tpu.config import SceneConfig
-    from nrc_hpm_tpu.lights import lights_from_scene, update_scene
+    from nrc_hpm.config import SceneConfig
+    from nrc_hpm.lights import lights_from_scene, update_scene
     # only scene 3 animates in the reference (HpmScene.cpp:64-71)
     scene = dataclasses.replace(SceneConfig.preset(3), dynamic=True)
     lights = lights_from_scene(scene)
@@ -107,12 +107,13 @@ def test_dynamic_scene_update():
 
 def test_reset_accumulation():
     import jax.numpy as jnp
-    from nrc_hpm_tpu.renderer import McRenderer, reset_accumulation
-    from nrc_hpm_tpu.config import AppConfig, SceneConfig
-    from nrc_hpm_tpu.camera import Camera
+    from nrc_hpm.renderer import McRenderer, reset_accumulation
+    from nrc_hpm.config import AppConfig, SceneConfig
+    from nrc_hpm.camera import Camera
+    from nrc_hpm.volume import seeded_volume
     cfg = AppConfig(scene=SceneConfig.preset(4), render_width=32,
                     render_height=16, mc_path_length=2)
-    r = McRenderer(cfg)
+    r = McRenderer(cfg, vol=seeded_volume(cfg.scene))
     cam = Camera.reference_camera(aspect=2.0)
     st = r.step(r.init_state(0), cam)
     assert float(jnp.abs(st.image).sum()) > 0
@@ -128,7 +129,7 @@ def test_checkpoint_rejects_structure_mismatch(tmp_path):
     import jax.numpy as jnp
     import pytest
 
-    from nrc_hpm_tpu.utils.checkpoint import load_pytree, save_pytree
+    from nrc_hpm.utils.checkpoint import load_pytree, save_pytree
     p = str(tmp_path / "ck.npz")
     a = {"x": jnp.zeros((3,)), "y": jnp.ones((3,))}
     save_pytree(p, a)

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.utils.vdb import load_vdb
+from nrc_hpm.utils.vdb import load_vdb
 
 
 def test_cloud_grid_shape(cloud_grid):
@@ -35,18 +35,16 @@ def test_not_a_vdb(tmp_path):
         load_vdb(str(p))
 
 
-def test_missing_grid_name():
+def test_missing_grid_name(wdas_vdb):
     with pytest.raises(ValueError):
-        load_vdb("/root/reference/data/volume/wdas_cloud_sixteenth.vdb",
-                 grid_name="nonexistent")
+        load_vdb(wdas_vdb, grid_name="nonexistent")
 
 
-def test_native_loader_matches_python(cloud_grid):
-    from nrc_hpm_tpu.utils import native
+def test_native_loader_matches_python(cloud_grid, wdas_vdb):
+    from nrc_hpm.utils import native
     if not native.available():
         pytest.skip("native/libnrcio.so not built")
-    arr, bbox_min, voxel = native.vdb_load_native(
-        "/root/reference/data/volume/wdas_cloud_sixteenth.vdb")
+    arr, bbox_min, voxel = native.vdb_load_native(wdas_vdb)
     assert arr.shape == cloud_grid.data.shape
     assert (bbox_min == cloud_grid.bbox_min).all()
     assert np.array_equal(arr, cloud_grid.data)

@@ -2,13 +2,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nrc_hpm_tpu.volume import (Volume, find_entry_exit, get_density,
+from nrc_hpm.volume import (Volume, find_entry_exit, get_density,
                                 WORLD_SCALE)
 
 
-def test_sky_size_normalized_extent(cloud_grid):
-    vol = Volume.from_dense(cloud_grid.data, 0.6, 0.8)
-    extent = np.array(cloud_grid.data.shape, np.float32)
+def test_sky_size_normalized_extent(seeded_grid):
+    vol = Volume.from_dense(seeded_grid, 0.6, 0.8)
+    extent = np.array(seeded_grid.shape, np.float32)
     expect = extent / np.linalg.norm(extent) * WORLD_SCALE
     assert np.allclose(np.asarray(vol.sky_size), expect, atol=1e-4)
 
@@ -35,11 +35,11 @@ def test_density_outside_is_zero(small_volume):
     assert np.all(np.asarray(get_density(small_volume, pos)) == 0)
 
 
-def test_quantization_matches_reference(cloud_grid):
+def test_quantization_matches_reference(seeded_grid):
     # uint8(value * 255) truncation (Texture3D.cpp:105)
-    vol = Volume.from_dense(cloud_grid.data, 1.0, 0.8)
+    vol = Volume.from_dense(seeded_grid, 1.0, 0.8)
     g = np.asarray(vol.grid)
-    expect = (np.clip(cloud_grid.data, 0, 1) * 255).astype(np.uint8)
+    expect = (np.clip(seeded_grid, 0, 1) * 255).astype(np.uint8)
     assert (g == expect).all()
 
 
@@ -96,3 +96,41 @@ def test_entry_exit_vs_bruteforce(small_volume):
             # allow marginal grazing rays to disagree
             frac = inside.mean()
             assert frac < 0.02
+
+
+def test_macro_majorant_dominates_density(seeded_grid):
+    """The packed macro majorant must dominate the density everywhere and
+    the control must stay below it, also when a grid dim is not a
+    multiple of MACRO_CELL (the seeded cloud's 126 x 86 x 154): a point's
+    macrocell is its voxel // 8."""
+    from nrc_hpm.volume import get_density_xyz, macro_profile_xyz
+    vol = Volume.from_dense(seeded_grid, 0.6, 0.8)
+    sky = np.asarray(vol.sky_size)
+    pts = (np.random.RandomState(0).rand(3, 200000) - 0.5) * sky[:, None]
+    px, py, pz = (jnp.asarray(p, jnp.float32) for p in pts)
+    dens = np.asarray(get_density_xyz(vol, px, py, pz))
+    sig, ctl = map(np.asarray, macro_profile_xyz(vol, px, py, pz))
+    assert (dens <= sig).all()
+    assert (ctl <= dens).all()
+
+
+def test_seeded_cloud_deterministic():
+    from nrc_hpm.volume import seeded_cloud
+    a, b, c = seeded_cloud(0), seeded_cloud(0), seeded_cloud(1)
+    assert np.array_equal(a, b)
+    assert not np.array_equal(a, c)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_seeded_cloud_dims_range_occupancy(seed):
+    from nrc_hpm.volume import seeded_cloud
+    d = seeded_cloud(seed)
+    assert d.shape == (126, 86, 154) and d.dtype == np.float32
+    assert d.min() == 0.0 and d.max() == pytest.approx(1.0)
+    # like the WDAS box: ~78% empty, after the u8 quantization too
+    assert abs((d == 0).mean() - 0.78) < 0.01
+    assert abs(((d * 255).astype(np.uint8) == 0).mean() - 0.78) < 0.02
+    # heterogeneous interior, not a binary mask
+    inside = d[d > 0]
+    assert np.percentile(inside, 90) > 2 * np.percentile(inside, 10)
+    assert seeded_cloud(seed, dims=(16, 8, 12)).shape == (16, 8, 12)
